@@ -10,7 +10,7 @@ def main(argv=None):
     from .tools import TOOL_MODULES, get_tool
 
     if not argv or argv[0] in ("-h", "--help"):
-        print("ngsbits-tpu — TPU-native NGS QC/processing toolkit")
+        print("ngsbits-tpu — accelerator-backed NGS QC/processing toolkit")
         print()
         print("Usage: python -m ngsbits_tpu <ToolName> [args...]")
         print()
@@ -32,4 +32,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from .utils.backend import enable_compilation_cache
+    enable_compilation_cache()
     sys.exit(main())

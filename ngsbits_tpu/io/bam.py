@@ -6,7 +6,7 @@ region iteration, genome-build detection by chr1 length). Decoding is done by
 the native library (native/ngshost.cpp) when available, else a pure-Python
 BGZF+record parser (identical output, used as cross-check in tests).
 
-TPU-first design: no per-record objects on the hot path — a ``BamBatch``
+Batched design: no per-record objects on the hot path — a ``BamBatch``
 holds numpy columns (fixed fields) plus flat variable buffers with offset
 vectors, which feed vectorized host logic and device kernels directly.
 """

@@ -40,12 +40,15 @@ def _one_block(data: bytes, level: int = 6) -> bytes:
 
 
 def bgzf_compress(data: bytes, level: int = 6, block_size: int = 0xFF00,
-                  eof: bool = True) -> bytes:
+                  eof: bool = True, pool=None) -> bytes:
     """BGZF-compress data; ``eof=False`` omits the trailing EOF block so
-    callers can stream several parts and terminate once."""
-    parts = []
-    for off in range(0, len(data), block_size):
-        parts.append(_one_block(data[off:off + block_size], level))
+    callers can stream several parts and terminate once. With a thread
+    `pool` (concurrent.futures) the independent blocks compress in
+    parallel (the native compressor releases the GIL)."""
+    chunks = [data[off:off + block_size]
+              for off in range(0, len(data), block_size)]
+    parts = list((pool.map if pool else map)(
+        lambda c: _one_block(c, level), chunks))
     if eof:
         parts.append(_EOF_BLOCK)
     return b"".join(parts)

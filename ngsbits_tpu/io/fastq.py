@@ -4,7 +4,7 @@ Behavioral reference: ngs-bits ``FastqFileStream``/``FastqEntry``
 (cppNGS/FastqFileStream.{h,cpp}): 4-line records, base alphabet ACGTN,
 quality chars 33..74 (33..126 with long_read), gzip output.
 
-TPU-first design: instead of per-read objects, reads stream in *batches* —
+Batched design: instead of per-read objects, reads stream in *batches* —
 ``FastqBatch`` holds ``bases``/``quals`` as [B, Lmax] uint8 arrays (ASCII
 codes, zero-padded) plus a length vector, ready for ``jax.device_put``.
 Headers are kept as raw bytes only when a consumer (e.g. the trimmer's

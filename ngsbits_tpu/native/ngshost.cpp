@@ -1,7 +1,7 @@
 // ngshost — native host-side decoders for ngsbits-tpu.
 //
 // Behavioral reference: ngs-bits uses htslib for BAM/BGZF (cppNGS/BamReader.h).
-// This is a from-scratch implementation of the pieces the TPU framework needs:
+// This is a from-scratch implementation of the pieces this framework needs:
 //   * BGZF block decoder with a pthread inflate pool (blocks are independent)
 //   * BAM header + batched record parser emitting columnar arrays
 //     (fixed fields + flat variable buffers: cigar/seq(unpacked 4-bit)/qual/

@@ -5,7 +5,7 @@ The reference connects to a Microsoft SQL Server / MySQL instance configured
 via settings (genlab_host/genlab_name/genlab_user/genlab_pass) and reads a set
 of read-only views (v_ngs_hpo, v_ngs_patient_ids, ...).
 
-TPU-native adaptation: the GenLab views are provided as tables of the same
+Adaptation: the GenLab views are provided as tables of the same
 name in a SQLite database whose path is given by the environment variable
 ``NGSBITS_GENLAB_SQLITE`` (mirrors the settings-based availability gate of
 GenLabDB::isAvailable, GenLabDB.cpp:78-86). Production MSSQL access is not

@@ -4,8 +4,8 @@ Behavioral reference: ngs-bits ``StatisticsReads::update``
 (cppNGS/StatisticsReads.cpp:26-81): per-cycle base pileups, per-cycle quality
 sums, base-quality histogram, per-read quality sums.
 
-TPU-first design: a whole batch of reads is one [B, L] uint8 tensor; the
-per-read C++ loop becomes masked vector reductions (VPU work, fused by XLA):
+Batched design: a whole batch of reads is one [B, L] uint8 tensor; the
+per-read C++ loop becomes masked vector reductions (fused by XLA):
   counts5[c, L]   = sum_B onehot(base)        (per-cycle pileups)
   qsum_cycle[L]   = sum_B qual                (per-cycle quality sums)
   qhist[Q]        = histogram of all quals    (one-hot matmul)
@@ -90,9 +90,8 @@ def readqc_batch_host(bases: np.ndarray, quals: np.ndarray,
                       lengths: np.ndarray):
     """Same contract as readqc_batch, computed on the host.
 
-    Used when no TPU is attached: CPU XLA materializes the [B, L, Q] one-hot
-    (measured ~2k reads/s at B=64k). Preferred order: the native C++ single
-    pass (ngs_readqc_batch, ~10x the numpy fallback), then numpy bincount.
+    The host path: the native C++ single pass (ngs_readqc_batch) when the
+    library builds, else numpy bincount.
     """
     B, L = bases.shape
     from ..io.native import get_lib
@@ -239,7 +238,7 @@ def stream_carry_init(L: int):
     """Fresh on-device accumulator set for max cycle count L."""
     import jax.numpy as jnp
     # int32 carries: the wrapper spills to 64-bit host accumulators every
-    # few million reads (DeviceReadStream.SPILL_READS), long before any
+    # few million reads or 2^30 bases (DeviceReadStream), before any
     # int32 bin can overflow — device x64 is never needed
     return dict(
         counts5=jnp.zeros((5, L), jnp.int32),

@@ -1,11 +1,13 @@
 """Device-mesh construction + sharded QC reduction steps.
 
 The reference is single-node multi-threaded (QThreadPool fan-out over genomic
-chunks / read blocks, SURVEY §2.5). The TPU-native equivalent implemented
+chunks / read blocks, SURVEY §2.5). The device equivalent implemented
 here: read batches are sharded over a 1-D `data` mesh axis with
 ``shard_map``; each device reduces its shard to tiny accumulator partials;
-partials are merged with ``psum`` over ICI so the host receives one merged
-state per step.
+partials are merged with ``psum`` so the host receives one merged state per
+step. The cards of one host are joined all to all, so the mesh follows the
+algorithm alone: one flat axis. Every step records which devices its input
+shards landed on (trace counters ``mesh.shards.<device id>``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import readqc as readqc_ops
+from ..utils import trace
 
 
 def make_mesh(devices=None, axis: str = "data") -> Mesh:
@@ -26,14 +29,23 @@ def make_mesh(devices=None, axis: str = "data") -> Mesh:
     return Mesh(np.array(devices), (axis,))
 
 
+def _shard(mesh: Mesh, x, spec: P):
+    """Place x on the mesh with `spec`, counting the devices it lands on."""
+    arr = jax.device_put(x, NamedSharding(mesh, spec))
+    for s in arr.addressable_shards:
+        trace.count(f"mesh.shards.{s.device.id}")
+    return arr
+
+
 def distributed_init(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None):
     """Multi-host runtime bring-up (jax.distributed.initialize wrapper).
 
-    On a multi-host TPU slice each host calls this once before building the
-    global mesh; with no arguments JAX discovers the topology from the TPU
-    runtime environment. Safe to call when already initialized.
+    With several hosts each calls this once before building the global
+    mesh, naming the coordinator, the process count and its own id (no
+    cluster environment announces them). Safe to call when already
+    initialized.
     """
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
@@ -49,9 +61,9 @@ def sharded_coverage_step(mesh: Mesh, starts, ends, genome_bins: int):
 
     starts/ends: [N] int32 bin indices of read alignment spans (half-open),
     sharded over the mesh batch axis. Each device scatter-adds its shard
-    into a local diff array; diffs are psum-merged over ICI and prefix-summed
-    on device — the TPU-native analogue of WorkerLowOrHighCoverageChr's
-    per-base uint8 arrays (WorkerLowOrHighCoverage.cpp:173-204) without the
+    into a local diff array; diffs are psum-merged and prefix-summed on
+    device — the device analogue of WorkerLowOrHighCoverageChr's per-base
+    uint8 arrays (WorkerLowOrHighCoverage.cpp:173-204) without the
     cap-at-254 artifact.
 
     Returns [genome_bins] int32 coverage.
@@ -68,16 +80,34 @@ def sharded_coverage_step(mesh: Mesh, starts, ends, genome_bins: int):
     fn = jax.jit(jax.shard_map(step, mesh=mesh,
                                in_specs=(P(axis), P(axis)),
                                out_specs=P()))
-    return fn(jnp.asarray(starts, jnp.int32), jnp.asarray(ends, jnp.int32))
+    spec = P(axis)
+    return fn(_shard(mesh, np.asarray(starts, np.int32), spec),
+              _shard(mesh, np.asarray(ends, np.int32), spec))
+
+
+def mesh_coverage(spans: list, size: int) -> np.ndarray:
+    """Coverage over positions 0..size-1 from buffered (starts, ends_excl)
+    int32 span pairs, accumulated by sharded_coverage_step over all
+    devices; spans pad to a device-count multiple with empty spans."""
+    s = (np.concatenate([x[0] for x in spans]) if spans
+         else np.zeros(0, np.int32))
+    e = (np.concatenate([x[1] for x in spans]) if spans
+         else np.zeros(0, np.int32))
+    nd = jax.device_count()
+    pad = nd if len(s) == 0 else (-len(s)) % nd
+    if pad:  # zero-length spans contribute nothing to the diff array
+        s = np.concatenate([s, np.zeros(pad, np.int32)])
+        e = np.concatenate([e, np.zeros(pad, np.int32)])
+    return np.asarray(sharded_coverage_step(make_mesh(), s, e, size),
+                      dtype=np.int64)
 
 
 def sharded_insert_scan(mesh: Mesh, seq1, seq2rc, min_len):
     """SeqPurge insert-match scan sharded over read pairs.
 
     Embarrassingly parallel over the batch axis (SURVEY §2.5 P3): outputs
-    stay sharded per pair, no collective needed. Uses the portable XLA
-    formulation inside shard_map (the Pallas kernel handles the single-chip
-    hot path; this demonstrates the multi-chip layout).
+    stay sharded per pair, no collective needed. The same XLA formulation
+    as the single-device route, inside shard_map.
     """
     from ..ops import seqpurge as sp_ops
     axis = mesh.axis_names[0]
@@ -87,8 +117,9 @@ def sharded_insert_scan(mesh: Mesh, seq1, seq2rc, min_len):
         in_specs=(P(axis, None), P(axis, None), P(axis)),
         out_specs=(P(axis, None), P(axis, None)),
     ))
-    return fn(jnp.asarray(seq1), jnp.asarray(seq2rc),
-              jnp.asarray(min_len, jnp.int32))
+    return fn(_shard(mesh, np.asarray(seq1), P(axis, None)),
+              _shard(mesh, np.asarray(seq2rc), P(axis, None)),
+              _shard(mesh, np.asarray(min_len, np.int32), P(axis)))
 
 
 def sharded_readqc_step(mesh: Mesh, bases, quals, lengths):
@@ -113,7 +144,9 @@ def sharded_readqc_step(mesh: Mesh, bases, quals, lengths):
         out_specs=(P(), P(), P(), P(axis)),
     )
     fn = jax.jit(shard)
-    return fn(jnp.asarray(bases), jnp.asarray(quals), jnp.asarray(lengths))
+    return fn(_shard(mesh, np.asarray(bases), P(axis, None)),
+              _shard(mesh, np.asarray(quals), P(axis, None)),
+              _shard(mesh, np.asarray(lengths), P(axis)))
 
 
 def sharded_mapping_counters_step(mesh: Mesh, flags, mapqs, on_target):
@@ -121,7 +154,7 @@ def sharded_mapping_counters_step(mesh: Mesh, flags, mapqs, on_target):
 
     flags: [N] uint16 SAM flags, mapqs: [N] int32, on_target: [N] bool —
     sharded over the batch axis; per-shard counter partials are psum-merged
-    over ICI (the mesh analogue of the reference's per-thread counter
+    (the mesh analogue of the reference's per-thread counter
     accumulation in Statistics::mapping).
 
     Returns int32 [5]: reads, mapped, duplicates, on-target, mapq0.

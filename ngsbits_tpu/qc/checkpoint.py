@@ -1,7 +1,7 @@
 """Checkpoint/resume for streaming QC accumulators.
 
 The reference has no checkpointing (SURVEY.md §5: tools are re-runnable batch
-jobs) — this is a TPU-framework addition so multi-hour WGS-scale scans on
+jobs) — this is an addition so multi-hour WGS-scale scans on
 preemptible hardware can snapshot their partial accumulator state between
 input shards and resume after a failure. State is saved as a single .npz
 (portable, backend-independent: accumulators live on host as int64 numpy).

@@ -13,10 +13,11 @@ WorkerAverageCoverage.cpp:
   * low/high output: threshold runs per ROI region, annotations preserved,
     final merge(true, true, true)
 
-TPU-first design: the per-alignment loops become one sequential batched pass
+Batched design: the per-alignment loops become one sequential batched pass
 over the BAM; per-chromosome coverage is a diff-array scatter-add + prefix
-sum (numpy for panel-scale spans, jax for WGS-scale spans); region stats are
-prefix-sum differences — no per-base Python anywhere.
+sum on the host, or the device coverage engine (ops/device_reduce) or the
+sharded mesh step (parallel/mesh); region stats are prefix-sum differences
+— no per-base Python anywhere.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ from ..core.intervals import BedFile, BedLine
 from ..io.bam import (BamBatch, BamReader, CIGAR_CONSUMES_REF, FLAG_DUPLICATE,
                       FLAG_PROPER_PAIR, FLAG_SECONDARY, FLAG_SUPPLEMENTARY,
                       FLAG_UNMAPPED)
-
-_DEVICE_SPAN_THRESHOLD = 32 << 20  # spans larger than this go to the TPU
 
 
 def _alignment_filter(batch: BamBatch, min_mapq: int, skip_mismapped: bool = False) -> np.ndarray:
@@ -54,11 +53,16 @@ class _ChrCoverage:
         self.counts = None  # per-base path (min_baseq) fills this lazily
         self._cov = None
         self._ps = None
-        self._dev = None    # device-resident accumulator (TPU route)
+        self._dev = None    # device coverage engine (device route)
+        # mesh mode: spans wait for the sharded scatter-add + psum step in
+        # finalize (parallel/mesh.py sharded_coverage_step)
+        self._mesh_spans = None
         import os as _os
-        if _os.environ.get("NGSBITS_MESH", "") in ("", "0"):
+        if _os.environ.get("NGSBITS_MESH", "") not in ("", "0"):
+            self._mesh_spans = []
+        else:
             from ..ops import device_reduce as dr
-            if dr.use_device(hi - lo + 1, dr.COVERAGE_DEVICE_MIN_SPAN):
+            if dr.use_device():
                 self._dev = dr.DeviceCoverage(hi - lo + 1)
 
     def add_spans(self, starts: np.ndarray, ends: np.ndarray):
@@ -71,12 +75,7 @@ class _ChrCoverage:
         if self._dev is not None:
             self._dev.add(s.astype(np.int32), (e + 1).astype(np.int32))
             return
-        import os as _os
-        if _os.environ.get("NGSBITS_MESH", "") not in ("", "0"):
-            # mesh mode: defer to the sharded scatter-add + psum step in
-            # finalize (parallel/mesh.py sharded_coverage_step)
-            if not hasattr(self, "_mesh_spans"):
-                self._mesh_spans = []
+        if self._mesh_spans is not None:
             self._mesh_spans.append((s.astype(np.int32), (e + 1).astype(np.int32)))
             return
         if self.diff is None:
@@ -100,24 +99,11 @@ class _ChrCoverage:
             self._cov = cov
             self._dev = None
             return
-        if getattr(self, "_mesh_spans", None) is not None:
-            import jax
-
-            from ..parallel.mesh import make_mesh, sharded_coverage_step
-            s = np.concatenate([x[0] for x in self._mesh_spans])
-            e = np.concatenate([x[1] for x in self._mesh_spans])
-            n = jax.device_count()
-            pad = n if len(s) == 0 else (-len(s)) % n
-            if pad:  # zero-length spans contribute nothing to the diff array
-                s = np.concatenate([s, np.zeros(pad, np.int32)])
-                e = np.concatenate([e, np.zeros(pad, np.int32)])
-            cov = np.asarray(sharded_coverage_step(make_mesh(), s, e, span),
-                             dtype=np.int64)
+        if self._mesh_spans is not None:
+            from ..parallel.mesh import mesh_coverage
+            cov = mesh_coverage(self._mesh_spans, span)
         elif self.diff is None:   # no spans ever added on the host path
             cov = np.zeros(span, dtype=np.int64)
-        elif span > _DEVICE_SPAN_THRESHOLD:
-            import jax.numpy as jnp
-            cov = np.asarray(jnp.cumsum(jnp.asarray(self.diff[:span + 1]))[:span])
         else:
             cov = np.cumsum(self.diff[:span + 1])[:span]
         if self.counts is not None:
@@ -156,23 +142,22 @@ class _ChrCoverageSparse:
         self.counts = None
         self._cov = None
         self._ps = None
-        # TPU route: buffer raw genomic spans; finalize evaluates coverage
-        # at every flattened ROI base with one sort+searchsorted dispatch
-        # (no host flattening work per batch, no scatter anywhere)
+        # spans are flattened on the host, then go to one of three sinks:
+        # the device coverage engine, the mesh buffer (sharded scatter-add
+        # + psum step at finalize), or the host diff array
         self._dev = None
+        self._mesh_spans = None
         import os as _os
-        if _os.environ.get("NGSBITS_MESH", "") in ("", "0"):
+        if _os.environ.get("NGSBITS_MESH", "") not in ("", "0"):
+            self._mesh_spans = []
+        else:
             from ..ops import device_reduce as dr
-            if dr.use_device(self.total, dr.COVERAGE_DEVICE_MIN_SPAN):
+            if dr.use_device():
                 self._dev = dr.DeviceCoverage(self.total)
 
     def add_spans(self, starts: np.ndarray, ends: np.ndarray):
         n = len(self.ms)
         if n == 0 or len(starts) == 0:
-            return
-        if self._dev is not None:
-            self._dev.add(starts.astype(np.int32),
-                          (ends + 1).astype(np.int32))
             return
         starts = starts.astype(np.int64)
         ends = ends.astype(np.int64)
@@ -188,10 +173,16 @@ class _ChrCoverageSparse:
             j = ii[act]
             s = np.maximum(starts[act], self.ms[j]) - self.ms[j] + self.off[j]
             e = np.minimum(ends[act], self.me[j]) - self.ms[j] + self.off[j]
-            if self.diff is None:
-                self.diff = np.zeros(self.total + 1, dtype=np.int64)
-            np.add.at(self.diff, s, 1)
-            np.add.at(self.diff, e + 1, -1)
+            if self._dev is not None:
+                self._dev.add(s.astype(np.int32), (e + 1).astype(np.int32))
+            elif self._mesh_spans is not None:
+                self._mesh_spans.append((s.astype(np.int32),
+                                         (e + 1).astype(np.int32)))
+            else:
+                if self.diff is None:
+                    self.diff = np.zeros(self.total + 1, dtype=np.int64)
+                np.add.at(self.diff, s, 1)
+                np.add.at(self.diff, e + 1, -1)
             i = i + more
         return
 
@@ -209,12 +200,11 @@ class _ChrCoverageSparse:
 
     def finalize(self):
         if self._dev is not None:
-            # genomic position of every flattened ROI base
-            lens = (self.me - self.ms + 1)
-            flat_pos = (np.arange(self.total, dtype=np.int64)
-                        + np.repeat(self.ms - self.off[:-1], lens))
-            cov = self._dev.coverage_at(flat_pos.astype(np.int32))
+            cov = self._dev.finalize()
             self._dev = None
+        elif self._mesh_spans is not None:
+            from ..parallel.mesh import mesh_coverage
+            cov = mesh_coverage(self._mesh_spans, self.total)
         elif self.diff is None:    # no spans ever added on the host path
             cov = np.zeros(self.total, dtype=np.int64)
         else:

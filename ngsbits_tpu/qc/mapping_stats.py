@@ -4,7 +4,7 @@ Behavioral reference: ngs-bits Statistics::mapping (ROI mode,
 cppNGS/Statistics.cpp:343-803), mapping (no-ROI, :805-989), mapping_wgs
 (:990-1360), contamination (:2333-2386), yxRatio (:2658-2697).
 
-TPU-first design: the reference's per-alignment loop becomes one sequential
+Batched design: the reference's per-alignment loop becomes one sequential
 batched pass with vectorized counters:
   * running-max read length (order-dependent trimmed-base quirk) via
     np.maximum.accumulate with cross-batch carry
@@ -159,10 +159,10 @@ class MappingScan:
         self.max_length = 0
         self.paired_end = False
         self.reads_per_ref: np.ndarray | None = None
-        # TPU route: scatter-add the ROI depth diff into a device-resident
-        # buffer instead (one small transfer per batch, cumsum at finalize);
-        # mesh mode defers to the sharded scatter-add + psum step instead;
-        # the host diff array is only allocated when neither route runs
+        # device route: buffer the ROI depth spans for the device coverage
+        # engine (one evaluation at finalize); mesh mode defers to the
+        # sharded scatter-add + psum step instead; the host diff array is
+        # only allocated when neither route runs
         self._roi_dev = None
         self._roi_mesh: list | None = None
         self.roi_cov_diff = None
@@ -171,7 +171,7 @@ class MappingScan:
             self._roi_mesh = []
         elif roi is not None:
             from ..ops import device_reduce as dr
-            if dr.use_device(int(roi.flat_off[-1]), dr.COVERAGE_DEVICE_MIN_SPAN):
+            if dr.use_device():
                 self._roi_dev = dr.DeviceCoverage(int(roi.flat_off[-1]))
             else:
                 self.roi_cov_diff = np.zeros(int(roi.flat_off[-1]) + 1,
@@ -618,21 +618,9 @@ def mapping_roi(bed: BedFile, bam_file: str, ref_file: str, min_mapq: int = 1,
 
     if scan._roi_mesh is not None:
         # sharded scatter-add + psum over the mesh (P2, SURVEY §2.5)
-        import jax
-
-        from ..parallel.mesh import make_mesh, sharded_coverage_step
-        span = int(scan.roi.flat_off[-1])
-        s = (np.concatenate([x[0] for x in scan._roi_mesh])
-             if scan._roi_mesh else np.zeros(0, np.int32))
-        e = (np.concatenate([x[1] for x in scan._roi_mesh])
-             if scan._roi_mesh else np.zeros(0, np.int32))
-        nd = jax.device_count()
-        pad = nd if len(s) == 0 else (-len(s)) % nd
-        if pad:   # zero-length spans contribute nothing
-            s = np.concatenate([s, np.zeros(pad, np.int32)])
-            e = np.concatenate([e, np.zeros(pad, np.int32)])
-        cov = np.asarray(sharded_coverage_step(make_mesh(), s, e, span),
-                         dtype=np.int64)[:roi_bases]
+        from ..parallel.mesh import mesh_coverage
+        cov = mesh_coverage(scan._roi_mesh,
+                            int(scan.roi.flat_off[-1]))[:roi_bases]
     elif scan._roi_dev is not None:
         cov = scan._roi_dev.finalize()[:roi_bases]
     else:

@@ -7,7 +7,7 @@ properly-paired; mapq>=min_mapq; base at position extracted by CIGAR walk
 optional fragment dedup by read name (disagreeing pair bases: higher quality
 wins, base-vs-deletion removes both).
 
-TPU-first design: instead of one random access per SNP, ONE sequential pass
+Batched design: instead of one random access per SNP, ONE sequential pass
 over the BAM; per batch the M-op segments are expanded vectorized and joined
 against the sorted SNP position list per chromosome via searchsorted —
 the per-(read,SNP) base/qual extraction is pure numpy indexing.
@@ -81,12 +81,11 @@ def pileup_at_positions(bam_file: str, chr_nums: np.ndarray, positions: np.ndarr
     if n == 0:
         return result
 
-    # TPU route: stream base-count scatter-adds into a device-resident
-    # buffer for large locus panels (contamination/ancestry/WGS gender scans)
+    # device route: buffer the base-count indices for one device bincount
+    # at the end (contamination/ancestry/WGS gender scans)
     from ..ops import device_reduce as dr
     dev_counts = (dr.DeviceBincount(n * 4)
-                  if not count_fragments
-                  and dr.use_device(n, dr.PILEUP_DEVICE_MIN_SNPS) else None)
+                  if not count_fragments and dr.use_device() else None)
 
     # group loci by chromosome, sorted positions with original index mapping
     order = np.lexsort((positions, chr_nums))

@@ -29,13 +29,12 @@ def _consume_parallel(stats: ReadStatistics, reader: FastqReader, direction: int
 
     from ..utils.prefetch import prefetch
 
-    from ..qc.read_stats import _use_device_batches
-    from ..utils.backend import is_tpu_backend
+    from ..ops.device_reduce import use_device
 
     n_workers = int(os.environ.get("NGSBITS_READQC_THREADS", "0") or 0) \
         or min(2, os.cpu_count() or 1)
-    if is_tpu_backend() and _use_device_batches():
-        # device-resident streaming: the chip is the accumulator — extra
+    if use_device():
+        # device-resident streaming: the device is the accumulator — extra
         # host workers only duplicate compilation and contend for it
         n_workers = 1
     if n_workers <= 1:

@@ -2,9 +2,8 @@
 
 Behavioral reference: SeqPurge's read→analyze→write thread pipeline over a
 ring of prefetched blocks (ThreadCoordinator.cpp:39-54, block_prefetch).
-TPU-native shape: one decode thread fills a bounded queue of ready batches
-while the main thread runs device compute — input decode and TPU execution
-overlap instead of alternating.
+Shape: one decode thread fills a bounded queue of ready batches while the
+main thread runs device compute — input decode and device execution overlap instead of alternating.
 """
 
 from __future__ import annotations

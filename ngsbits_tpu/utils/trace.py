@@ -4,10 +4,13 @@ Behavioral reference: ngs-bits' ad-hoc QElapsedTimer + ``-debug`` stage
 duration prints (MappingQC/main.cpp:81-97,141-164, Statistics.cpp:2540-2610)
 and SeqPurge's ``-progress`` queue status lines (ThreadCoordinator.cpp:56-81).
 
-TPU-native additions: `device_profile` wraps ``jax.profiler`` trace capture
-so a tool run can emit an XPlane trace viewable in TensorBoard/XProf, and
-StageTimer records host-side stage durations in one place instead of
-scattered timers.
+Additions: `device_profile` wraps ``jax.profiler`` trace capture so a tool
+run can emit an XPlane trace viewable in TensorBoard/XProf, StageTimer
+records host-side stage durations in one place instead of scattered timers,
+and `count` keeps process-wide event counters: every device engine counts
+its dispatches (``device.*``) and every mesh step the devices its input
+shards landed on (``mesh.shards.<device id>``), so a run can show which
+route it took.
 """
 
 from __future__ import annotations
@@ -16,6 +19,23 @@ import contextlib
 import datetime
 import sys
 import time
+from collections import Counter
+
+_COUNTERS: Counter = Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the process-wide counter `name`."""
+    _COUNTERS[name] += n
+
+
+def counters() -> dict[str, int]:
+    """Snapshot of every counter incremented so far in this process."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 def elapsed_time(start: float) -> str:

@@ -1,5 +1,5 @@
-"""ops/device_reduce correctness on the CPU backend (the -m tpu lane pins
-the same engines on the chip; these cover the edge cases cheaply)."""
+"""ops/device_reduce correctness on the CPU backend (the -m gpu lane pins
+the same engines on the card; these cover the edge cases cheaply)."""
 
 import numpy as np
 import pytest
@@ -31,11 +31,12 @@ def test_device_coverage_empty_and_eval_positions():
     np.testing.assert_array_equal(dc.finalize(), np.zeros(100, np.int64))
     dc = DeviceCoverage(1000)
     dc.add(np.array([10], np.int32), np.array([20], np.int32))
-    pos = np.array([9, 10, 19, 20, 500], np.int32)
-    np.testing.assert_array_equal(dc.coverage_at(pos), [0, 1, 1, 0, 0])
-    # unsorted evaluation positions are fine (each independent)
-    np.testing.assert_array_equal(
-        dc.coverage_at(np.array([500, 10], np.int32)), [0, 1])
+    # a span may end at the span's end (end_excl == span)
+    dc.add(np.array([990], np.int32), np.array([1000], np.int32))
+    cov = dc.finalize()
+    pos = np.array([9, 10, 19, 20, 500, 989, 990, 999])
+    np.testing.assert_array_equal(cov[pos], [0, 1, 1, 0, 0, 0, 1, 1])
+    assert cov.dtype == np.int64 and len(cov) == 1000
 
 
 def test_device_bincount_matches_numpy():
@@ -120,6 +121,30 @@ def test_device_stream_readqc_parity(long_read):
     for i, b in enumerate(batches):
         stream.update(b, FORWARD if i % 2 == 0 else REVERSE)
 
+    got = [str(v) for v in dev.get_result().to_string_list()]
+    want = [str(v) for v in host.get_result().to_string_list()]
+    assert got == want
+
+
+def test_device_stream_spills_by_bases():
+    """The base count bounds the int32 carries too: long reads spill on
+    SPILL_BASES long before SPILL_READS reads."""
+    from ngsbits_tpu.qc.read_stats import (FORWARD, DeviceReadStream,
+                                           ReadStatistics)
+    from ngsbits_tpu.utils import trace
+
+    rng = np.random.default_rng(8)
+    batches = _random_fastq_batches(rng, 4, long_read=True)
+    host = ReadStatistics(single_end=True)
+    dev = ReadStatistics(single_end=True)
+    stream = DeviceReadStream(qual_bits=8)
+    stream.SPILL_BASES = int(batches[0].lengths.sum()) + 1
+    dev._stream = stream
+    trace.reset_counters()
+    for b in batches:
+        host.update_batch(b, FORWARD)
+        stream.update(b, FORWARD)
+    assert trace.counters()["device.readqc_spills"] == 2
     got = [str(v) for v in dev.get_result().to_string_list()]
     want = [str(v) for v in host.get_result().to_string_list()]
     assert got == want

@@ -7,11 +7,8 @@ fusion files, the mini genome + Ensembl GFF from test_hgvs — and checks every
 exported study file.
 """
 
-import sys
-
 import pytest
 
-sys.path.insert(0, "/root/repo/tests")
 from test_hgvs import _write_mini_gff, _write_mini_ref  # noqa: E402
 
 from helpers import execute  # noqa: E402

@@ -4226,13 +4226,15 @@ def test_bam_reader_pileup_insert_only():
 
 def test_bam_info():
     """BamReader_Test.cpp:632-662 (info_bam) — via the BamInfo tool columns."""
+    import os
     import subprocess
     import sys
 
     p = subprocess.run(
         [sys.executable, "-m", "ngsbits_tpu", "BamInfo", "-name", "-in",
          f"{DIN}/BamReader_lr.bam", f"{DIN}/BamReader_rna.bam"],
-        capture_output=True, cwd="/root/repo")
+        capture_output=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     rows = [l.split("\t") for l in p.stdout.decode().splitlines()[1:]]
     # long-read DNA, HG38, masked, no ALT, minimap2, single-end
     assert rows[0] == ["BamReader_lr.bam", "BAM", "hg38", "yes", "no",

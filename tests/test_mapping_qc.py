@@ -103,8 +103,6 @@ def stub_ref38(tmp_path_factory):
     ref = d / "hg38.fa"
     ref.write_bytes(b"")
     # synthesize an hg38 .fai from any hg38 BAM header
-    import sys
-    sys.path.insert(0, "/root/repo")
     from ngsbits_tpu.io.bam import BamReader
     r = BamReader("/root/reference/src/tools-TEST/data_in/MappingQC_in5.bam")
     with open(str(ref) + ".fai", "w") as fh:
